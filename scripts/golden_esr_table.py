@@ -33,13 +33,13 @@ def eval_model(path, fs=48000.0, r_source=45e3, n_samples=4096):
     import jax.numpy as jnp
     import numpy as np
 
-    import diffwdf_tpu as dwdf
-    from diffwdf_tpu.models.diode_clipper import (
+    import diffwdf as dwdf
+    from diffwdf.models.diode_clipper import (
         make_diode_clipper,
         make_hpf_diode_clipper,
     )
-    from diffwdf_tpu.roots.diode import ALL_1N4148, diode_1n4148_1u1d
-    from diffwdf_tpu.roots.neural import NeuralDiodeRoot
+    from diffwdf.roots.diode import ALL_1N4148, diode_1n4148_1u1d
+    from diffwdf.roots.neural import NeuralDiodeRoot
 
     fname = os.path.basename(path)
     m = re.search(r"\((\d)U-(\d)D\)", fname)

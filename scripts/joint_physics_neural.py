@@ -44,12 +44,12 @@ def main(argv=None):
 
     import numpy as np
 
-    import diffwdf_tpu as dwdf
-    from diffwdf_tpu.data.synthetic import synth_clipper_measurement
-    from diffwdf_tpu.models.diode_clipper import make_training_clipper
-    from diffwdf_tpu.nn.serialization import load_model_json
-    from diffwdf_tpu.roots.neural import NeuralDiodeRoot
-    from diffwdf_tpu.training.circuit_train import (
+    import diffwdf as dwdf
+    from diffwdf.data.synthetic import synth_clipper_measurement
+    from diffwdf.models.diode_clipper import make_training_clipper
+    from diffwdf.nn.serialization import load_model_json
+    from diffwdf.roots.neural import NeuralDiodeRoot
+    from diffwdf.training.circuit_train import (
         CircuitTrainConfig,
         joint_fit_clipper,
         make_clipper_batches,

@@ -13,11 +13,11 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
-from diffwdf_tpu.analysis import plot_target_pred, plot_transconductance
-from diffwdf_tpu.data.synthetic import pretraining_grid
-from diffwdf_tpu.nn.serialization import load_model_json
-from diffwdf_tpu.roots.diode import ALL_1N4148, default_diode, diode_oa1154_1u1d
-from diffwdf_tpu.roots.neural import mlp_apply
+from diffwdf.analysis import plot_target_pred, plot_transconductance
+from diffwdf.data.synthetic import pretraining_grid
+from diffwdf.nn.serialization import load_model_json
+from diffwdf.roots.diode import ALL_1N4148, default_diode, diode_oa1154_1u1d
+from diffwdf.roots.neural import mlp_apply
 
 OUT = sys.argv[1] if len(sys.argv) > 1 else "runs/pretraining_plots"
 os.makedirs(OUT, exist_ok=True)

@@ -1,11 +1,11 @@
-"""Record scaling-efficiency evidence (SCALING_r05.json).
+"""Record scaling-efficiency curves to a JSON file.
 
 Runs the DP-training and time-block weak-scaling curves from
-``diffwdf_tpu.parallel.scaling_bench`` on whatever mesh is available:
-real chips if several are attached, else an 8-virtual-device CPU mesh
-(the standard JAX single-host multi-device test rig).
+``diffwdf.parallel.scaling_bench`` in this one process, on whatever mesh is
+available: the attached GPUs with ``--virtual 0``, else an
+8-virtual-device CPU mesh (the standard JAX single-host multi-device rig).
 
-    python scripts/measure_scaling.py [--out SCALING_r05.json] [--iters 5]
+    python scripts/measure_scaling.py [--out chiprun_out/scaling.json] [--iters 5]
 """
 
 import argparse
@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="SCALING_r05.json")
+    ap.add_argument("--out", default="chiprun_out/scaling.json")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--virtual", type=int, default=8,
                     help="force an N-virtual-device CPU mesh (0 = use the "
@@ -35,9 +35,10 @@ def main(argv=None):
         jax.config.update("jax_platforms", "cpu")
     import jax
 
-    from diffwdf_tpu.parallel.scaling_bench import run_scaling_suite
+    from diffwdf.parallel.scaling_bench import run_scaling_suite
 
     res = run_scaling_suite(iters=args.iters)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(res, f, indent=2)
     print(json.dumps({

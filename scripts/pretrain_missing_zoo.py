@@ -7,9 +7,9 @@ for these, so we record ours in PRETRAIN_RESULTS.json with mode="zoo".
 import json, os, sys, time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from diffwdf_tpu.nn.serialization import save_model_json
-from diffwdf_tpu.roots.diode import ALL_1N4148, default_diode
-from diffwdf_tpu.training.pretrain import (
+from diffwdf.nn.serialization import save_model_json
+from diffwdf.roots.diode import ALL_1N4148, default_diode
+from diffwdf.training.pretrain import (
     PretrainConfig,
     evaluate_pretrained,
     pretrain_diode,

@@ -1,7 +1,7 @@
 import json, os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from diffwdf_tpu.roots.diode import diode_1n4148_1u1d
-from diffwdf_tpu.training.pretrain import PretrainConfig, evaluate_pretrained, pretrain_diode
+from diffwdf.roots.diode import diode_1n4148_1u1d
+from diffwdf.training.pretrain import PretrainConfig, evaluate_pretrained, pretrain_diode
 
 results = []
 for (lr, bs, epochs, seed) in [

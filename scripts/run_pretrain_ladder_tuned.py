@@ -6,13 +6,13 @@ model JSONs under models/pretrained/.
 """
 import json, os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from diffwdf_tpu.nn.serialization import save_model_json
-from diffwdf_tpu.roots.diode import ALL_1N4148
-from diffwdf_tpu.training.pretrain import PretrainConfig, evaluate_pretrained, pretrain_diode
+from diffwdf.nn.serialization import save_model_json
+from diffwdf.roots.diode import ALL_1N4148
+from diffwdf.training.pretrain import PretrainConfig, evaluate_pretrained, pretrain_diode
 from run_pretrain_ladder import LADDER
 
-PRECISION = "highest"  # f32 matmuls: the tiny MLP is floored ~1e-6 under
-# the MXU's default bf16 passes (see PretrainConfig.matmul_precision)
+PRECISION = "highest"  # f32 matmuls: reduced-precision passes floor the
+# tiny MLP's error (see PretrainConfig.matmul_precision)
 
 out = []
 if os.path.exists("PRETRAIN_RESULTS.json"):

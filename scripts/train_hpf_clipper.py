@@ -20,26 +20,26 @@ ap = argparse.ArgumentParser()
 ap.add_argument("--epochs", type=int, default=501)
 ap.add_argument("--duration", type=float, default=16.0, help="train seconds")
 ap.add_argument("--val-duration", type=float, default=4.0)
-ap.add_argument("--platform", choices=("tpu", "cpu"))
+ap.add_argument("--platform", choices=("gpu", "cpu"))
 ap.add_argument("--engine", default="scan", choices=("scan", "fused_generic"),
-                help="fused_generic = ops.parallel_bptt (Pallas forward + "
-                     "parallel adjoint; ~an order of magnitude over scan "
-                     "BPTT on TPU)")
+                help="fused_generic = ops.parallel_bptt (fused-kernel "
+                     "forward + parallel backward)")
 cli = ap.parse_args()
 
 import jax
 
-if cli.platform == "cpu":
-    jax.config.update("jax_platforms", "cpu")
+if cli.platform:  # "gpu" fails at start-up when no GPU is found
+    jax.config.update("jax_platforms",
+                      "cuda" if cli.platform == "gpu" else "cpu")
 import jax.numpy as jnp
 
-from diffwdf_tpu.analysis import plot_history
-from diffwdf_tpu.data.synthetic import synth_hpf_measurement
-from diffwdf_tpu.models.diode_clipper import make_hpf_diode_clipper
-from diffwdf_tpu.nn.serialization import load_model_json, save_model_json
-from diffwdf_tpu.roots.diode import diode_1n4148_1u1d
-from diffwdf_tpu.roots.neural import NeuralDiodeRoot
-from diffwdf_tpu.training.circuit_train import (
+from diffwdf.analysis import plot_history
+from diffwdf.data.synthetic import synth_hpf_measurement
+from diffwdf.models.diode_clipper import make_hpf_diode_clipper
+from diffwdf.nn.serialization import load_model_json, save_model_json
+from diffwdf.roots.diode import diode_1n4148_1u1d
+from diffwdf.roots.neural import NeuralDiodeRoot
+from diffwdf.training.circuit_train import (
     CircuitTrainConfig,
     make_clipper_batches,
     train_clipper,

@@ -21,7 +21,7 @@ ap.add_argument("--epochs", type=int, default=501)
 ap.add_argument("--duration", type=float, default=16.0, help="train seconds")
 ap.add_argument("--val-duration", type=float, default=4.0)
 ap.add_argument("--drive", type=float, default=0.5)
-ap.add_argument("--platform", choices=("tpu", "cpu"))
+ap.add_argument("--platform", choices=("gpu", "cpu"))
 ap.add_argument("--engine", default="fused_generic",
                 choices=("scan", "fused_generic"))
 ap.add_argument("--batch-size", type=int, default=2048)
@@ -30,17 +30,18 @@ cli = ap.parse_args()
 
 import jax
 
-if cli.platform == "cpu":
-    jax.config.update("jax_platforms", "cpu")
+if cli.platform:  # "gpu" fails at start-up when no GPU is found
+    jax.config.update("jax_platforms",
+                      "cuda" if cli.platform == "gpu" else "cpu")
 import jax.numpy as jnp
 
-from diffwdf_tpu.analysis import plot_history
-from diffwdf_tpu.data.synthetic import synth_ts_measurement
-from diffwdf_tpu.models.tube_screamer import make_tube_screamer
-from diffwdf_tpu.nn.serialization import load_model_json, save_model_json
-from diffwdf_tpu.roots.diode import diode_1n4148_1u1d
-from diffwdf_tpu.roots.neural import NeuralDiodeRoot
-from diffwdf_tpu.training.circuit_train import (
+from diffwdf.analysis import plot_history
+from diffwdf.data.synthetic import synth_ts_measurement
+from diffwdf.models.tube_screamer import make_tube_screamer
+from diffwdf.nn.serialization import load_model_json, save_model_json
+from diffwdf.roots.diode import diode_1n4148_1u1d
+from diffwdf.roots.neural import NeuralDiodeRoot
+from diffwdf.training.circuit_train import (
     CircuitTrainConfig,
     make_clipper_batches,
     train_clipper,

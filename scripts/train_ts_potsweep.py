@@ -3,9 +3,8 @@
 The reference's flagship training drives the pot per data row — every
 measurement CSV carries its own source resistance and the circuit re-adapts
 to it during training (``clipper_pot.py:113-124``, one R per file after
-``dataimport.py:109``).  Round 4's generic fused engine rejected that
-workload ("use engine='scan' for a genuinely time-varying pot"); round 5's
-per-row coefficient streams run it at fused-adjoint speed on ANY circuit.
+``dataimport.py:109``).  The generic fused engine's per-row coefficient
+streams run that workload on ANY circuit.
 
 This script exercises exactly that on the Tube Screamer: measurements are
 synthesized at a LADDER of drive-pot positions (analytic-root oracle, the
@@ -34,7 +33,7 @@ ap.add_argument("--epochs", type=int, default=501)
 ap.add_argument("--duration", type=float, default=4.0,
                 help="train seconds PER drive position")
 ap.add_argument("--val-duration", type=float, default=2.0)
-ap.add_argument("--platform", choices=("tpu", "cpu"))
+ap.add_argument("--platform", choices=("gpu", "cpu"))
 ap.add_argument("--engine", default="fused_generic",
                 choices=("scan", "fused_generic"))
 ap.add_argument("--batch-size", type=int, default=2048)
@@ -43,21 +42,22 @@ cli = ap.parse_args()
 
 import jax
 
-if cli.platform == "cpu":
-    jax.config.update("jax_platforms", "cpu")
+if cli.platform:  # "gpu" fails at start-up when no GPU is found
+    jax.config.update("jax_platforms",
+                      "cuda" if cli.platform == "gpu" else "cpu")
 import jax.numpy as jnp
 
-from diffwdf_tpu.analysis import plot_history
-from diffwdf_tpu.data.synthetic import synth_ts_measurement
-from diffwdf_tpu.models.tube_screamer import drive_to_r6, make_tube_screamer
-from diffwdf_tpu.nn.serialization import load_model_json, save_model_json
-from diffwdf_tpu.roots.diode import diode_1n4148_1u1d
-from diffwdf_tpu.roots.neural import NeuralDiodeRoot
-from diffwdf_tpu.training.circuit_train import (
+from diffwdf.analysis import plot_history
+from diffwdf.data.synthetic import synth_ts_measurement
+from diffwdf.models.tube_screamer import drive_to_r6, make_tube_screamer
+from diffwdf.nn.serialization import load_model_json, save_model_json
+from diffwdf.roots.diode import diode_1n4148_1u1d
+from diffwdf.roots.neural import NeuralDiodeRoot
+from diffwdf.training.circuit_train import (
     CircuitTrainConfig,
     train_clipper,
 )
-from diffwdf_tpu.training.metrics import MetricsLogger
+from diffwdf.training.metrics import MetricsLogger
 
 FS = 48000.0
 TRAIN_DRIVES = [0.0, 0.2, 0.4, 0.6, 0.8, 1.0]

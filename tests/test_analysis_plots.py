@@ -5,13 +5,13 @@ import os
 import jax
 import numpy as np
 
-from diffwdf_tpu.analysis import (
+from diffwdf.analysis import (
     plot_history,
     plot_target_pred,
     plot_transconductance,
 )
-from diffwdf_tpu.roots.diode import diode_1n4148_1u1d
-from diffwdf_tpu.roots.neural import mlp_arch, mlp_init
+from diffwdf.roots.diode import diode_1n4148_1u1d
+from diffwdf.roots.neural import mlp_arch, mlp_init
 
 
 def test_plot_outputs(tmp_path):
@@ -37,7 +37,7 @@ def test_cli_plot_transconductance(tmp_path, capsys):
     """CLI parity with the reference's plot_transconductance.py script."""
     import json as _json
 
-    from diffwdf_tpu.cli import main
+    from diffwdf.cli import main
 
     mj = "models/pretrained/1N4148 (1U-1D)_2x16_pretrained_model.json"
     if not os.path.exists(mj):
@@ -54,9 +54,9 @@ def test_zoo_physics_consistency_at_serving_impedance():
     pretraining recipe beats the reference on grid MSE but is *less*
     Shockley-consistent at low R (r <= 1 kOhm) — this guard pins the regime
     the circuits actually run in."""
-    from diffwdf_tpu.analysis import transconductance_error
-    from diffwdf_tpu.nn.serialization import load_model_json
-    from diffwdf_tpu.roots.diode import diode_1n4148_1u1d
+    from diffwdf.analysis import transconductance_error
+    from diffwdf.nn.serialization import load_model_json
+    from diffwdf.roots.diode import diode_1n4148_1u1d
 
     mj = "models/pretrained/1N4148 (1U-1D)_2x16_pretrained_model.json"
     if not os.path.exists(mj):

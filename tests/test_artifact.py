@@ -1,6 +1,6 @@
 """Compiled serving artifacts (jax.export / StableHLO).
 
-The TPU-native analog of the reference's deploy pipeline
+The analog of the reference's deploy pipeline
 (train -> JSON -> binary-embedded -> RTNeural parse,
 ``plugin/src/CMakeLists.txt:16-34`` / ``DiodePairNeuralModel.h:55-61``):
 a trained circuit is lowered to a self-contained artifact that serves with
@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from diffwdf_tpu.models.diode_clipper import make_diode_clipper
-from diffwdf_tpu.models.tube_screamer import make_tube_screamer
-from diffwdf_tpu.roots.diode import DiodePairRoot
-from diffwdf_tpu.roots.neural import NeuralDiodeRoot
-from diffwdf_tpu.runtime.artifact import load_artifact, save_artifact
+from diffwdf.models.diode_clipper import make_diode_clipper
+from diffwdf.models.tube_screamer import make_tube_screamer
+from diffwdf.roots.diode import DiodePairRoot
+from diffwdf.roots.neural import NeuralDiodeRoot
+from diffwdf.runtime.artifact import export_circuit, load_artifact, save_artifact
 
 FS = 48000.0
 PRETRAINED_2x16 = "models/pretrained/1N4148 (1U-1D)_2x16_pretrained_model.json"
@@ -44,6 +44,18 @@ def test_artifact_roundtrip_matches_scan(tmp_path):
     y = art.run(x)
     ref, _ = ckt.process(params, ckt.init_state(), {"Vs": {"v": jnp.asarray(x)}})
     assert np.max(np.abs(y - np.asarray(ref))) < 1e-5
+
+
+def test_artifact_exports_for_cpu_and_cuda():
+    """The default export lowers for the host and the GPU alike (lowering
+    for CUDA needs no card); the in-memory artifact runs here."""
+    ckt, params = _make_clipper()
+    art = export_circuit(ckt, params, block_len=128, fs=FS)
+    assert art.meta["platforms"] == ["cpu", "cuda"]
+    assert tuple(art._exported.platforms) == ("cpu", "cuda")
+    x = _sine(300)
+    ref, _ = ckt.process(params, ckt.init_state(), {"Vs": {"v": jnp.asarray(x)}})
+    assert np.max(np.abs(art.run(x) - np.asarray(ref))) < 1e-5
 
 
 def test_artifact_state_carries_across_blocks(tmp_path):
@@ -80,7 +92,7 @@ def test_artifact_is_self_contained(tmp_path):
 
 @pytest.mark.skipif(not os.path.exists(PRETRAINED_2x16), reason="zoo absent")
 def test_artifact_neural_root_weights_baked_in(tmp_path):
-    from diffwdf_tpu.nn.serialization import load_model_json
+    from diffwdf.nn.serialization import load_model_json
 
     mlp, acts, _ = load_model_json(PRETRAINED_2x16)
     root, frag = NeuralDiodeRoot.from_mlp("dp", mlp, acts)
@@ -122,7 +134,7 @@ def test_artifact_rejects_foreign_file(tmp_path):
 def test_cli_export_then_run_artifact(tmp_path):
     """Full deploy loop through the user surface: export on the 'trainer',
     serve from the artifact alone."""
-    from diffwdf_tpu.cli import main
+    from diffwdf.cli import main
 
     art = str(tmp_path / "a.npz")
     inp = str(tmp_path / "x.npy")

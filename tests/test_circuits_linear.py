@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.signal as sig
 
-import diffwdf_tpu as dwdf
+import diffwdf as dwdf
 
 FS = 48000.0
 

@@ -7,10 +7,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import diffwdf_tpu as dwdf
-from diffwdf_tpu.models.diode_clipper import make_diode_clipper
-from diffwdf_tpu.models.tube_screamer import make_tube_screamer
-from diffwdf_tpu.roots.neural import NeuralDiodeRoot
+import diffwdf as dwdf
+from diffwdf.models.diode_clipper import make_diode_clipper
+from diffwdf.models.tube_screamer import make_tube_screamer
+from diffwdf.roots.neural import NeuralDiodeRoot
 
 pytestmark = pytest.mark.skipif(
     shutil.which("g++") is None, reason="no C++ compiler"
@@ -25,7 +25,7 @@ def _x(n=4096, amp=0.5, f=440.0):
 
 
 def test_codegen_clipper_matches_scan():
-    from diffwdf_tpu.native.codegen import compile_circuit
+    from diffwdf.native.codegen import compile_circuit
 
     root = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d)
     ckt = make_diode_clipper(root, FS)
@@ -38,7 +38,7 @@ def test_codegen_clipper_matches_scan():
 
 
 def test_codegen_tube_screamer_matches_scan():
-    from diffwdf_tpu.native.codegen import compile_circuit
+    from diffwdf.native.codegen import compile_circuit
 
     root = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d)
     ckt = make_tube_screamer(root, FS, drive=0.8)
@@ -53,7 +53,7 @@ def test_codegen_tube_screamer_matches_scan():
 
 def test_codegen_neural_root():
     """MLP root traces through dot_general/tanh into the generated C."""
-    from diffwdf_tpu.native.codegen import compile_circuit
+    from diffwdf.native.codegen import compile_circuit
 
     nroot = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=16)
     frag = nroot.init_params(jax.random.PRNGKey(1))
@@ -67,7 +67,7 @@ def test_codegen_neural_root():
 
 
 def test_codegen_state_carries():
-    from diffwdf_tpu.native.codegen import compile_circuit
+    from diffwdf.native.codegen import compile_circuit
 
     root = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d)
     ckt = make_tube_screamer(root, FS, drive=0.5)

@@ -1,29 +1,35 @@
-"""Generic fused parallel-in-time solver (ops.deer_circuit): any circuit,
-multi-state S x S affine composition, jvp-derived Jacobians.
-
-Interpret mode on CPU; the identical kernel compiles for TPU.
-"""
+"""Parallel-in-time (DEER) solving of any circuit (ops.parallel_time):
+multi-state S x S affine composition, jacfwd-derived Jacobians, and the
+``engine="deer"`` serving processors built on it."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-import diffwdf_tpu as dwdf
-from diffwdf_tpu.models.diode_clipper import (
+import diffwdf as dwdf
+from diffwdf.models.diode_clipper import (
     make_diode_clipper,
     make_hpf_diode_clipper,
 )
-from diffwdf_tpu.models.tube_screamer import make_tube_screamer
-from diffwdf_tpu.ops.deer_circuit import fused_deer_circuit
+from diffwdf.models.tube_screamer import make_tube_screamer
+from diffwdf.ops.parallel_time import parallel_time_process
 
 FS = 96000.0
 
 
+def deer_solve(ckt, params, vin, *, input_node, sweeps=12,
+                       damping=1.0, static_controls=None, state0=None):
+    """(outputs, final state, residual) of the plain DEER solve."""
+    return parallel_time_process(
+        ckt, params, {input_node: {"v": vin}}, n_iters=sweeps,
+        damping=damping, static_controls=static_controls, state0=state0,
+        return_state=True, return_residual=True,
+    )
+
+
 def test_tube_screamer_three_state():
     """The showcase: 4-port R-type op-amp stage, S=3 reactive states —
-    the whole Newton-over-trajectory solve in one kernel matches the
-    sequential scan."""
+    the whole Newton-over-trajectory solve matches the sequential scan."""
     root = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d,
                               quality="best")
     ts = make_tube_screamer(root, FS, drive=0.5)
@@ -31,8 +37,7 @@ def test_tube_screamer_three_state():
     rng = np.random.default_rng(2)
     vin = jnp.asarray((0.5 * rng.standard_normal(2048)).astype(np.float32))
     ref, ref_st = ts.process(params, ts.init_state(), {"Vin": {"v": vin}})
-    out, st, res = fused_deer_circuit(ts, params, vin, input_node="Vin",
-                                 interpret=True)
+    out, st, res = deer_solve(ts, params, vin, input_node="Vin")
     assert float(jnp.max(jnp.abs(out - ref))) < 1e-4, "TS output parity"
     # final state pytree matches too
     import jax
@@ -43,8 +48,7 @@ def test_tube_screamer_three_state():
 
 
 def test_clipper_matches_dedicated_kernel_math():
-    """S=1 sanity: the generic kernel reproduces the sequential clipper
-    (the dedicated ops.parallel_time_deer covers this topology faster)."""
+    """S=1 sanity: the solve reproduces the sequential clipper."""
     root = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d,
                               quality="best")
     ckt = make_diode_clipper(root, FS, 47e3, 2.2e-9)
@@ -52,8 +56,7 @@ def test_clipper_matches_dedicated_kernel_math():
     rng = np.random.default_rng(4)
     vin = jnp.asarray((2.0 * rng.standard_normal(1024)).astype(np.float32))
     ref, _ = ckt.process(params, ckt.init_state(), {"Vs": {"v": vin}})
-    out, _, _ = fused_deer_circuit(ckt, params, vin, input_node="Vs",
-                                interpret=True)
+    out, _, _ = deer_solve(ckt, params, vin, input_node="Vs")
     assert float(jnp.max(jnp.abs(out - ref))) < 1e-6
 
 
@@ -68,55 +71,19 @@ def test_hpf_needs_damping():
     rng = np.random.default_rng(2)
     vin = jnp.asarray((2.0 * rng.standard_normal(2048)).astype(np.float32))
     ref, _ = hpf.process(params, hpf.init_state(), {"Vs": {"v": vin}})
-    bad, _, _ = fused_deer_circuit(hpf, params, vin, input_node="Vs",
-                                sweeps=8, interpret=True)
-    good, _, _ = fused_deer_circuit(hpf, params, vin, input_node="Vs",
-                                 sweeps=24, damping=0.5, interpret=True)
+    bad, _, _ = deer_solve(hpf, params, vin, input_node="Vs",
+                                sweeps=8)
+    good, _, _ = deer_solve(hpf, params, vin, input_node="Vs",
+                                 sweeps=24, damping=0.5)
     err_bad = float(jnp.max(jnp.abs(bad - ref)))
     err_good = float(jnp.max(jnp.abs(good - ref)))
     assert err_good < 3e-4, err_good
     assert err_good < err_bad / 100
 
 
-def test_adaptive_sweeps_early_exit():
-    """Residual-adaptive mode (round-5): with adapt_tol > 0 the sweep loop
-    early-exits on the max state update.  On the HPF's marginal mode the
-    adaptive solve matches the fixed-48-sweep trajectory at the same
-    accuracy; on the contractive plain clipper it exits after FAR fewer
-    sweeps than the cap."""
-    root = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d,
-                              quality="best")
-    hpf = make_hpf_diode_clipper(root, FS)
-    params = {**hpf.init_params(), **root.init_params()}
-    rng = np.random.default_rng(5)
-    vin = jnp.asarray((2.0 * rng.standard_normal(2048)).astype(np.float32))
-    ref, _ = hpf.process(params, hpf.init_state(), {"Vs": {"v": vin}})
-
-    fixed, _, _ = fused_deer_circuit(hpf, params, vin, input_node="Vs",
-                                     sweeps=48, damping=0.5, interpret=True)
-    adap, _, res, n = fused_deer_circuit(
-        hpf, params, vin, input_node="Vs", sweeps=48, damping=0.5,
-        adapt_tol=1e-5, return_info=True, interpret=True)
-    assert float(n) <= 48
-    err_fixed = float(jnp.max(jnp.abs(fixed - ref)))
-    err_adap = float(jnp.max(jnp.abs(adap - ref)))
-    # same accuracy class as the fixed budget (both at/below the f32 drift)
-    assert err_adap < max(2.0 * err_fixed, 3e-4), (err_adap, err_fixed)
-
-    # contractive circuit: the adaptive loop stops well before the cap
-    ckt = make_diode_clipper(root, FS)
-    cparams = {**ckt.init_params(), **root.init_params()}
-    cref, _ = ckt.process(cparams, ckt.init_state(), {"Vs": {"v": vin}})
-    cad, _, _, nc = fused_deer_circuit(
-        ckt, cparams, vin, input_node="Vs", sweeps=48,
-        adapt_tol=1e-6, return_info=True, interpret=True)
-    assert float(nc) < 24, float(nc)
-    assert float(jnp.max(jnp.abs(cad - cref))) < 1e-5
-
-
 def test_xla_deer_damping_matches():
     """The damping knob on the XLA path fixes the same HPF oscillation."""
-    from diffwdf_tpu.ops.parallel_time import parallel_time_process
+    from diffwdf.ops.parallel_time import parallel_time_process
 
     root = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d,
                               quality="best")
@@ -135,8 +102,8 @@ def test_xla_deer_damping_matches():
 
 def test_static_controls_drive_pot():
     """Block-rate impedance controls (the TS drive pot) enter through
-    static_controls, same contract as the fused forward kernel."""
-    from diffwdf_tpu.models.tube_screamer import drive_to_r6
+    static_controls, same contract as the fused forward kernel"""
+    from diffwdf.models.tube_screamer import drive_to_r6
 
     root = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d)
     ts = make_tube_screamer(root, FS, drive=0.2)
@@ -146,16 +113,16 @@ def test_static_controls_drive_pot():
     ctl = {"R6": {"R": drive_to_r6(0.9)}}
     ref, _ = ts.process(params, ts.init_state(), {"Vin": {"v": vin}},
                         static_controls=ctl)
-    out, _, _ = fused_deer_circuit(ts, params, vin, input_node="Vin",
-                                static_controls=ctl, interpret=True)
+    out, _, _ = deer_solve(ts, params, vin, input_node="Vin",
+                                static_controls=ctl)
     assert float(jnp.max(jnp.abs(out - ref))) < 1e-4
 
 
 def test_plugin_processor_deer_engine():
     """make_plugin_processor(engine='deer'): clipper AND tube screamer serve
-    through the fused parallel-in-time kernels, matching the scan engine
+    through the parallel-in-time solver, matching the scan engine
     block-for-block (incl. the drive-pot static control)."""
-    from diffwdf_tpu.runtime.stream import make_plugin_processor
+    from diffwdf.runtime.stream import make_plugin_processor
 
     fs = 48000.0
     rng = np.random.default_rng(9)
@@ -173,9 +140,9 @@ def test_plugin_processor_deer_engine():
 
 def test_plugin_processor_deer_zoo1_quality_parity():
     """Zoo entry 1 ('approx', 1-iter omega) through the plugin's deer
-    engine must match the scan engine — the fused kernel must inherit the
+    engine must match the scan engine — the solver must inherit the
     root's omega quality, not the default 3 iterations."""
-    from diffwdf_tpu.runtime.stream import make_plugin_processor
+    from diffwdf.runtime.stream import make_plugin_processor
 
     fs = 48000.0
     rng = np.random.default_rng(17)
@@ -188,8 +155,8 @@ def test_plugin_processor_deer_zoo1_quality_parity():
 
 def test_clipper_processor_approx_quality_parity():
     """engine='deer' must not change the model: the 'approx' circuit's
-    1-iteration omega quality carries into the fused kernel."""
-    from diffwdf_tpu.runtime.stream import make_clipper_processor
+    1-iteration omega quality carries into the solver."""
+    from diffwdf.runtime.stream import make_clipper_processor
 
     fs = 48000.0
     rng = np.random.default_rng(13)
@@ -203,7 +170,7 @@ def test_clipper_processor_approx_quality_parity():
 def test_hpf_processor_deer_engine():
     """engine='deer' on the HPF processor: damped generic fused solver,
     block-parity with the scan engine across carried state."""
-    from diffwdf_tpu.runtime.stream import make_hpf_processor
+    from diffwdf.runtime.stream import make_hpf_processor
 
     fs = 48000.0
     rng = np.random.default_rng(14)
@@ -219,7 +186,7 @@ def test_hpf_processor_deer_engine():
 def test_implicit_variant_damping():
     """The implicit-VJP solver accepts the same damping knob (HPF gradient
     workloads need it for the same marginal-mode reason)."""
-    from diffwdf_tpu.ops.parallel_time import parallel_time_process_implicit
+    from diffwdf.ops.parallel_time import parallel_time_process_implicit
 
     root = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d,
                               quality="best")
@@ -258,8 +225,7 @@ def test_parity_gap_is_the_f32_floor():
     vin64 = 2.0 * rng.standard_normal(2048)
     vin32 = jnp.asarray(vin64.astype(np.float32))
     scan32, _ = ckt.process(params, ckt.init_state(), {"Vs": {"v": vin32}})
-    deer32, _, _ = fused_deer_circuit(ckt, params, vin32, input_node="Vs",
-                                      interpret=True)
+    deer32, _, _ = deer_solve(ckt, params, vin32, input_node="Vs")
     with jax.enable_x64():
         oracle, _ = ckt.process(to64(params), to64(ckt.init_state()),
                                 {"Vs": {"v": jnp.asarray(vin64)}})
@@ -280,8 +246,7 @@ def test_parity_gap_is_the_f32_floor():
     v64 = 0.5 * rng.standard_normal(2048)
     v32 = jnp.asarray(v64.astype(np.float32))
     scan32, _ = ts32.process(p32, ts32.init_state(), {"Vin": {"v": v32}})
-    deer32, _, _ = fused_deer_circuit(ts32, p32, v32, input_node="Vin",
-                                      interpret=True)
+    deer32, _, _ = deer_solve(ts32, p32, v32, input_node="Vin")
     with jax.enable_x64():
         oracle, _ = ts64.process(to64(p64), to64(ts64.init_state()),
                                  {"Vin": {"v": jnp.asarray(v64)}})
@@ -297,14 +262,13 @@ def test_parity_gap_is_the_f32_floor():
 
 def test_fused_deer_neural_matches_scan():
     """Neural-root parallel-in-time (round-2 VERDICT #3): the generic fused
-    DEER solver with the Kronecker-MLP root override matches the sequential
+    DEER solve (Jacobians through the MLP) matches the sequential
     scan on the pretrained 2x16 clipper (the reference's headline real-time
     engine, ``DiodePairNeuralModel.h:68-73``)."""
-    from diffwdf_tpu.models.diode_clipper import (
+    from diffwdf.models.diode_clipper import (
         make_diode_clipper, make_root_from_zoo,
     )
-    from diffwdf_tpu.ops.deer_circuit import fused_deer_neural
-
+    
     fs = 48000.0
     root, frag = make_root_from_zoo(4)  # 2x16, pretrained weights
     ckt = make_diode_clipper(root, fs)
@@ -312,9 +276,8 @@ def test_fused_deer_neural_matches_scan():
     rng = np.random.default_rng(7)
     x = jnp.asarray((2.0 * rng.standard_normal(2048)).astype(np.float32))
     ref, ref_state = ckt.process(params, ckt.init_state(), {"Vs": {"v": x}})
-    out, stf, res = fused_deer_neural(
+    out, stf, res = deer_solve(
         ckt, params, x, input_node="Vs", state0=ckt.init_state(),
-        interpret=True,
     )
     assert float(jnp.max(jnp.abs(out - ref))) < 5e-6
     assert float(res) < 1e-5
@@ -325,11 +288,10 @@ def test_fused_deer_neural_matches_scan():
 
 def test_fused_deer_neural_multi_diode_and_sizes():
     """The whole NxH family solves: a 4x8 net and a multi-diode 2x16."""
-    from diffwdf_tpu.models.diode_clipper import (
+    from diffwdf.models.diode_clipper import (
         make_diode_clipper, make_root_from_zoo,
     )
-    from diffwdf_tpu.ops.deer_circuit import fused_deer_neural
-
+    
     fs = 48000.0
     rng = np.random.default_rng(9)
     x = jnp.asarray((1.5 * rng.standard_normal(1024)).astype(np.float32))
@@ -338,52 +300,18 @@ def test_fused_deer_neural_multi_diode_and_sizes():
         ckt = make_diode_clipper(root, fs)
         params = {**ckt.init_params(), **frag}
         ref, _ = ckt.process(params, ckt.init_state(), {"Vs": {"v": x}})
-        out, _, res = fused_deer_neural(
+        out, _, res = deer_solve(
             ckt, params, x, input_node="Vs", state0=ckt.init_state(),
-            interpret=True,
         )
         assert float(jnp.max(jnp.abs(out - ref))) < 5e-6, zoo_idx
         assert float(res) < 1e-5, zoo_idx
-
-
-def test_fused_neural_kernels_reject_relu_roots():
-    """The SMEM-DEER and Kron fused kernels hardcode tanh hidden layers; a
-    JSON-loadable relu-mixed root (``roots/neural.py:88-90``, reference
-    loader ``layers.py:65-70``) must be rejected loudly, not silently served
-    with the wrong nonlinearity."""
-    import pytest
-
-    from diffwdf_tpu.models.diode_clipper import make_diode_clipper
-    from diffwdf_tpu.ops.deer_circuit import fused_deer_neural
-    from diffwdf_tpu.ops.fused_circuit import fused_circuit_process_neural
-    from diffwdf_tpu.roots.neural import NeuralDiodeRoot
-
-    fs = 48000.0
-    root = NeuralDiodeRoot(
-        name="dp", n_layers=2, layer_size=8,
-        activations=("tanh", "relu", "tanh", ""),
-    )
-    ckt = make_diode_clipper(root, fs)
-    params = {**ckt.init_params(), **root.init_params(jax.random.PRNGKey(0))}
-    x = jnp.zeros((1024,), jnp.float32)
-    with pytest.raises(ValueError, match="tanh"):
-        fused_deer_neural(ckt, params, x, input_node="Vs", interpret=True)
-    with pytest.raises(ValueError, match="tanh"):
-        fused_circuit_process_neural(
-            ckt, {k: v for k, v in params.items() if k != "dp"},
-            params["dp"], jnp.zeros((8, 128), jnp.float32),
-            jax.tree_util.tree_map(
-                lambda z: jnp.zeros((8,), jnp.float32), ckt.init_state()
-            ),
-            input_node="Vs", interpret=True,
-        )
 
 
 def test_neural_deer_serving_engine_parity():
     """make_clipper_processor(engine='deer') serves the NEURAL clipper
     through the fused parallel-in-time solver with scan-engine parity
     (gain ramp, cutoff map, DC blocker, carried state identical)."""
-    from diffwdf_tpu.runtime.stream import make_clipper_processor
+    from diffwdf.runtime.stream import make_clipper_processor
 
     fs = 48000.0
     rng = np.random.default_rng(13)
@@ -408,7 +336,7 @@ def test_hpf_neural_deer_serving_parity():
     (extrapolated/trained) through the damped generic solver too, with
     scan-engine parity — every member of the HPF group gets the
     parallel-in-time path."""
-    from diffwdf_tpu.runtime.stream import make_hpf_processor
+    from diffwdf.runtime.stream import make_hpf_processor
 
     fs = 48000.0
     rng = np.random.default_rng(17)
@@ -419,6 +347,6 @@ def test_hpf_neural_deer_serving_parity():
         a = p_scan.process_block(x, name, cutoff_hz=3000.0)
         b = p_deer.process_block(x, name, cutoff_hz=3000.0)
         # marginal series-cap mode: damped solver reaches ~1e-4 (see
-        # ops.deer_circuit docstring); fallback handles flagged blocks
+        # ops.parallel_time); fallback handles flagged blocks
         np.testing.assert_allclose(a, b, atol=5e-4)
         assert np.all(np.isfinite(b))

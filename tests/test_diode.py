@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 from scipy.special import wrightomega
 
-from diffwdf_tpu.roots.diode import (
+from diffwdf.roots.diode import (
     DiodeConfig,
     diode_1n4148_1u1d,
     diode_1n4148_2u3d,

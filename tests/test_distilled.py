@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import diffwdf_tpu as dwdf
-from diffwdf_tpu.models.diode_clipper import make_diode_clipper
-from diffwdf_tpu.ops.fused_clipper import fused_clipper_cheb
-from diffwdf_tpu.roots.distilled import PiecewiseChebRoot, distill_root
-from diffwdf_tpu.roots.neural import NeuralDiodeRoot
+import diffwdf as dwdf
+from diffwdf.models.diode_clipper import make_diode_clipper
+from diffwdf.ops.fused_circuit import fused_circuit_process
+from diffwdf.roots.distilled import PiecewiseChebRoot, distill_root
+from diffwdf.roots.neural import NeuralDiodeRoot
 
 FS = 96000.0
 R_SRC, CAP = 47.0e3, 2.2e-9
@@ -75,15 +75,13 @@ def test_fused_cheb_kernel_matches_engine():
         return out, st["C"]["z"]
 
     want, want_z = jax.vmap(one)(vin)
-    got, got_z = fused_clipper_cheb(
-        vin,
-        jnp.zeros((B,), jnp.float32),
-        droot,
-        R_SRC,
-        CAP,
-        fs=FS,
-        time_chunk=128,
-        interpret=jax.default_backend() != "tpu",
+    got, got_st = fused_circuit_process(
+        ckt_d, pd, vin,
+        jax.tree_util.tree_map(
+            lambda _: jnp.zeros((B,), jnp.float32), ckt_d.init_state()
+        ),
+        input_node="Vs", interpret=True,
     )
+    got_z = got_st["C"]["z"]
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-5)
     np.testing.assert_allclose(np.asarray(got_z), np.asarray(want_z), atol=1e-5)

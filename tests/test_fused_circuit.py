@@ -4,13 +4,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import diffwdf_tpu as dwdf
-from diffwdf_tpu.models.diode_clipper import (
+import diffwdf as dwdf
+from diffwdf.models.diode_clipper import (
     make_diode_clipper,
     make_hpf_diode_clipper,
 )
-from diffwdf_tpu.models.tube_screamer import make_tube_screamer
-from diffwdf_tpu.ops.fused_circuit import fused_circuit_process
+from diffwdf.models.tube_screamer import make_tube_screamer
+from diffwdf.ops.fused_circuit import fused_circuit_process
 
 FS = 96000.0
 B, T = 1024, 256
@@ -81,7 +81,7 @@ def test_fused_circuit_matches_scan_tube_screamer():
 
 
 def test_fused_circuit_state_carries():
-    """Two chunked calls == one long call (VMEM state round-trips)."""
+    """Two chunked calls == one long call (the state round-trips)."""
     root = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d)
     ckt = make_tube_screamer(root, FS, drive=0.5)
     params = {**ckt.init_params(), **root.init_params()}
@@ -101,10 +101,9 @@ def test_fused_circuit_state_carries():
 
 
 def test_fused_circuit_neural_tube_screamer():
-    """Neural 2x16 root through the root-override hook — the reference's
+    """Neural 2x16 root as float32 FMAs inside the kernel — the reference's
     Tube Screamer neural model choice (``TubeScreamer.h:73-74``)."""
-    from diffwdf_tpu.ops.fused_circuit import fused_circuit_process_neural
-    from diffwdf_tpu.roots.neural import NeuralDiodeRoot
+    from diffwdf.roots.neural import NeuralDiodeRoot
 
     nroot = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=16)
     frag = nroot.init_params(jax.random.PRNGKey(3))
@@ -112,7 +111,7 @@ def test_fused_circuit_neural_tube_screamer():
     params = {**ckt.init_params(), **frag}
     vin = _vin(4, amp=0.2)
     ref = _scan_ref(ckt, params, vin)
-    out, _ = fused_circuit_process_neural(
-        ckt, params, frag["dp"], vin, _batched_state(ckt), interpret=True
+    out, _ = fused_circuit_process(
+        ckt, params, vin, _batched_state(ckt), interpret=True
     )
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-5)

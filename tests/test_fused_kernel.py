@@ -1,20 +1,17 @@
-"""Fused Pallas clipper kernels vs the reference-parity scan engine.
+"""The fused kernel on the diode clipper vs the reference-parity scan engine.
 
-On CPU these run in Pallas interpret mode; the same code compiles for TPU
-(benchmarked by bench.py on hardware).
+On CPU these run in Pallas interpret mode; the same kernel compiles for the
+GPU through Triton (``chip_smoke.py`` times and checks it there).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-import diffwdf_tpu as dwdf
-from diffwdf_tpu.models.diode_clipper import make_diode_clipper
-from diffwdf_tpu.ops.fused_clipper import (
-    fused_clipper_analytic,
-    fused_clipper_neural,
-)
-from diffwdf_tpu.roots.neural import NeuralDiodeRoot
+import diffwdf as dwdf
+from diffwdf.models.diode_clipper import make_diode_clipper
+from diffwdf.ops.fused_circuit import fused_circuit_process
+from diffwdf.roots.neural import NeuralDiodeRoot
 
 FS = 96000.0
 R_SRC = 47.0e3
@@ -33,6 +30,16 @@ def _engine_reference(root, params, vin):
     return np.asarray(outs), np.asarray(zf)
 
 
+def _fused(root, params, vin, z0=None):
+    ckt = make_diode_clipper(root, FS, r_source=R_SRC, cap=CAP)
+    B = vin.shape[0]
+    z0 = jnp.zeros((B,), jnp.float32) if z0 is None else z0
+    out, st = fused_circuit_process(
+        ckt, params, vin, {"C": {"z": z0}}, input_node="Vs", interpret=True
+    )
+    return out, st["C"]["z"]
+
+
 def test_fused_analytic_matches_engine():
     diode = dwdf.diode_1n4148_1u2d  # asymmetric: exercises the sign-select
     root = dwdf.DiodePairRoot(name="dp", diode=diode, quality="best")
@@ -40,27 +47,13 @@ def test_fused_analytic_matches_engine():
     tree_params = make_diode_clipper(root, FS, R_SRC, CAP).init_params()
     params = {**tree_params, **params}
 
-    B, T = 1024, 512
+    B, T = 256, 512
     rng = np.random.default_rng(0)
     vin = jnp.asarray(
         (2.0 * rng.standard_normal((B, T))).astype(np.float32)
     )
     want, want_z = _engine_reference(root, params, vin)
-
-    Vt = diode.Vt * diode.nabla
-    got, got_z = fused_clipper_analytic(
-        vin,
-        jnp.zeros((B,), jnp.float32),
-        R_SRC,
-        CAP,
-        diode.Is,
-        Vt,
-        float(diode.N_up),
-        float(diode.N_down),
-        fs=FS,
-        time_chunk=128,
-        interpret=jax.default_backend() != "tpu",
-    )
+    got, got_z = _fused(root, params, vin)
     np.testing.assert_allclose(np.asarray(got), want, atol=5e-6)
     np.testing.assert_allclose(np.asarray(got_z), want_z, atol=5e-6)
 
@@ -68,23 +61,18 @@ def test_fused_analytic_matches_engine():
 def test_fused_analytic_state_carry():
     """Running two half-signals with carried state == one full signal."""
     diode = dwdf.diode_1n4148_1u1d
-    Vt = diode.Vt * diode.nabla
-    B, T = 1024, 256
+    root = dwdf.DiodePairRoot(name="dp", diode=diode, quality="best")
+    params = {
+        **make_diode_clipper(root, FS, R_SRC, CAP).init_params(),
+        **root.init_params(),
+    }
+    B, T = 256, 256
     rng = np.random.default_rng(1)
     vin = jnp.asarray((1.5 * rng.standard_normal((B, T))).astype(np.float32))
-    interp = jax.default_backend() != "tpu"
 
-    args = (R_SRC, CAP, diode.Is, Vt, 1.0, 1.0)
-    full, zf = fused_clipper_analytic(
-        vin, jnp.zeros((B,)), *args, fs=FS, time_chunk=128, interpret=interp
-    )
-    h1, z1 = fused_clipper_analytic(
-        vin[:, : T // 2], jnp.zeros((B,)), *args, fs=FS, time_chunk=128,
-        interpret=interp
-    )
-    h2, z2 = fused_clipper_analytic(
-        vin[:, T // 2 :], z1, *args, fs=FS, time_chunk=128, interpret=interp
-    )
+    full, zf = _fused(root, params, vin)
+    h1, z1 = _fused(root, params, vin[:, : T // 2])
+    h2, z2 = _fused(root, params, vin[:, T // 2 :], z1)
     np.testing.assert_allclose(
         np.asarray(full), np.concatenate([h1, h2], axis=1), atol=1e-6
     )
@@ -97,87 +85,28 @@ def test_fused_neural_matches_engine():
     tree_params = make_diode_clipper(root, FS, R_SRC, CAP).init_params()
     all_params = {**tree_params, **params}
 
-    B, T = 1024, 256
+    B, T = 256, 256
     rng = np.random.default_rng(2)
     vin = jnp.asarray((2.0 * rng.standard_normal((B, T))).astype(np.float32))
     want, want_z = _engine_reference(root, all_params, vin)
-
-    got, got_z = fused_clipper_neural(
-        vin,
-        jnp.zeros((B,), jnp.float32),
-        params["dp"],
-        R_SRC,
-        CAP,
-        fs=FS,
-        time_chunk=128,
-        interpret=jax.default_backend() != "tpu",
-    )
+    got, got_z = _fused(root, all_params, vin)
     np.testing.assert_allclose(np.asarray(got), want, atol=2e-5)
     np.testing.assert_allclose(np.asarray(got_z), want_z, atol=2e-5)
 
 
 def test_fused_neural_4x_family_matches_engine():
     """The deeper zoo entries (4x4 / 4x8, ``DiodePairNeuralModel.h:23-40``)
-    run through the same kernel via the stacked-hidden-layer unroll."""
+    run through the same kernel: every layer is unrolled at trace time."""
     for width in (4, 8):
         root = NeuralDiodeRoot(name="dp", n_layers=4, layer_size=width)
         params = root.init_params(jax.random.PRNGKey(11 + width))
         tree_params = make_diode_clipper(root, FS, R_SRC, CAP).init_params()
         all_params = {**tree_params, **params}
 
-        B, T = 1024, 256
+        B, T = 256, 256
         rng = np.random.default_rng(3)
         vin = jnp.asarray((2.0 * rng.standard_normal((B, T))).astype(np.float32))
         want, want_z = _engine_reference(root, all_params, vin)
-
-        got, got_z = fused_clipper_neural(
-            vin,
-            jnp.zeros((B,), jnp.float32),
-            params["dp"],
-            R_SRC,
-            CAP,
-            fs=FS,
-            time_chunk=128,
-            interpret=jax.default_backend() != "tpu",
-        )
+        got, got_z = _fused(root, all_params, vin)
         np.testing.assert_allclose(np.asarray(got), want, atol=2e-5)
         np.testing.assert_allclose(np.asarray(got_z), want_z, atol=2e-5)
-
-
-def test_fused_neural_k2_interleave_matches_engine():
-    """B=2048 -> lanes=256 with chunks=2: the interleaved-ILP path (the one
-    bench.py exercises at B=8192/lanes=1024) matches the scan engine
-    (ADVICE r1: K>1 previously had no correctness coverage)."""
-    root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=16)
-    params = root.init_params(jax.random.PRNGKey(11))
-    tree_params = make_diode_clipper(root, FS, R_SRC, CAP).init_params()
-    all_params = {**tree_params, **params}
-
-    B, T = 2048, 128
-    rng = np.random.default_rng(5)
-    vin = jnp.asarray((2.0 * rng.standard_normal((B, T))).astype(np.float32))
-    want, want_z = _engine_reference(root, all_params, vin)
-
-    got, got_z = fused_clipper_neural(
-        vin, jnp.zeros((B,), jnp.float32), params["dp"], R_SRC, CAP,
-        fs=FS, lanes=256, chunks=2,
-        interpret=jax.default_backend() != "tpu",
-    )
-    np.testing.assert_allclose(np.asarray(got), want, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(got_z), want_z, atol=2e-5)
-
-
-def test_chunks_validation():
-    """chunks < 1 raises; an invalid request falls back to the largest valid
-    count <= the request, never above it (ADVICE r1)."""
-    import pytest
-
-    from diffwdf_tpu.ops.fused_clipper import _valid_chunks
-
-    with pytest.raises(ValueError):
-        _valid_chunks(0, 1024)
-    assert _valid_chunks(3, 1024) == 2   # nearest valid below, not 8
-    assert _valid_chunks(8, 1024) == 8
-    assert _valid_chunks(5, 512) == 4
-    assert _valid_chunks(2, 128) == 1    # single 128-lane group
-    assert _valid_chunks(16, 1024) == 8  # clamped to lanes//128

@@ -14,10 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import diffwdf_tpu as dwdf
-from diffwdf_tpu.models.diode_clipper import make_diode_clipper
-from diffwdf_tpu.roots.diode import diode_1n4148_1u1d, diode_pair_reflected
-from diffwdf_tpu.roots.neural import NeuralDiodeRoot, mlp_apply
+import diffwdf as dwdf
+from diffwdf.models.diode_clipper import make_diode_clipper
+from diffwdf.roots.diode import diode_1n4148_1u1d, diode_pair_reflected
+from diffwdf.roots.neural import NeuralDiodeRoot, mlp_apply
 
 REF_MODELS = "/root/reference/wdf_py/diode_clipper/models"
 PRETRAINED_2x16 = os.path.join(
@@ -108,7 +108,7 @@ def test_neural_clipper_close_to_analytic_clipper():
 
 
 def test_make_root_from_zoo_all_entries():
-    from diffwdf_tpu.models.diode_clipper import ZOO, make_root_from_zoo
+    from diffwdf.models.diode_clipper import ZOO, make_root_from_zoo
 
     for idx in range(len(ZOO)):
         root, frag = make_root_from_zoo(idx)
@@ -129,12 +129,12 @@ def test_trained_artifacts_track_their_circuits():
     import jax.numpy as jnp
     import pytest
 
-    import diffwdf_tpu as dwdf
-    from diffwdf_tpu.models.diode_clipper import (
+    import diffwdf as dwdf
+    from diffwdf.models.diode_clipper import (
         make_hpf_diode_clipper,
         make_training_clipper,
     )
-    from diffwdf_tpu.roots.neural import NeuralDiodeRoot
+    from diffwdf.roots.neural import NeuralDiodeRoot
 
     cases = [
         ("runs/hpf_1u1d/1N4148_1U1D_2x16_hpf_trained.json",
@@ -177,7 +177,7 @@ def test_full_reference_zoo_interchange():
     variants (nested/int ``in_shape``, InputLayer rows, 3-D kernels)."""
     import glob
 
-    from diffwdf_tpu.nn.serialization import load_model_json, save_model_json
+    from diffwdf.nn.serialization import load_model_json, save_model_json
 
     files = sorted(glob.glob(os.path.join(REF_MODELS, "**", "*.json"),
                              recursive=True))

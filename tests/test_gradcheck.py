@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import diffwdf_tpu as dwdf
-from diffwdf_tpu.models.diode_clipper import make_diode_clipper
-from diffwdf_tpu.models.simple_circuits import make_rc_lowpass
-from diffwdf_tpu.roots.neural import NeuralDiodeRoot
+import diffwdf as dwdf
+from diffwdf.models.diode_clipper import make_diode_clipper
+from diffwdf.models.simple_circuits import make_rc_lowpass
+from diffwdf.roots.neural import NeuralDiodeRoot
 
 FS = 48000.0
 

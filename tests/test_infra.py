@@ -8,15 +8,15 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from diffwdf_tpu.analysis import transconductance_error
-from diffwdf_tpu.roots.diode import diode_1n4148_1u1d
-from diffwdf_tpu.roots.neural import mlp_arch, mlp_init
-from diffwdf_tpu.training.checkpoint import (
+from diffwdf.analysis import transconductance_error
+from diffwdf.roots.diode import diode_1n4148_1u1d
+from diffwdf.roots.neural import mlp_arch, mlp_init
+from diffwdf.training.checkpoint import (
     latest_checkpoint,
     restore_checkpoint,
     save_checkpoint,
 )
-from diffwdf_tpu.training.metrics import MetricsLogger, load_jsonl
+from diffwdf.training.metrics import MetricsLogger, load_jsonl
 
 
 def test_checkpoint_roundtrip_with_opt_state(tmp_path):
@@ -50,7 +50,7 @@ def test_resume_training_is_exact(tmp_path):
     x = jnp.asarray(np.random.default_rng(0).normal(size=(64, 2)).astype(np.float32))
     y = jnp.tanh(x[:, :1])
 
-    from diffwdf_tpu.roots.neural import mlp_apply
+    from diffwdf.roots.neural import mlp_apply
 
     @jax.jit
     def step(p, s):
@@ -104,7 +104,7 @@ def test_transconductance_error_metric():
         "1N4148 (1U-1D)_2x16_pretrained_model.json"
     )
     if os.path.exists(zoo):
-        from diffwdf_tpu.nn.serialization import load_model_json
+        from diffwdf.nn.serialization import load_model_json
 
         mlp, acts2, _ = load_model_json(zoo)
         e_gold = transconductance_error(mlp, acts2, diode_1n4148_1u1d)
@@ -112,7 +112,7 @@ def test_transconductance_error_metric():
 
 
 def test_cli_fit_components(capsys):
-    from diffwdf_tpu.cli import main
+    from diffwdf.cli import main
 
     main(["fit-components", "--circuit", "divider", "--epochs", "60"])
     out = capsys.readouterr().out.strip().splitlines()[-1]
@@ -121,7 +121,7 @@ def test_cli_fit_components(capsys):
 
 
 def test_cli_simulate(tmp_path, capsys):
-    from diffwdf_tpu.cli import main
+    from diffwdf.cli import main
 
     out = str(tmp_path / "y.npy")
     main(
@@ -144,7 +144,7 @@ def test_cli_simulate(tmp_path, capsys):
 
 
 def test_cli_pretrain_quick(tmp_path, capsys):
-    from diffwdf_tpu.cli import main
+    from diffwdf.cli import main
 
     out = str(tmp_path / "m.json")
     main(
@@ -172,7 +172,7 @@ def test_save_layers_json_full_tag_set(tmp_path):
 
     import numpy as np
 
-    from diffwdf_tpu.nn.serialization import save_layers_json
+    from diffwdf.nn.serialization import save_layers_json
 
     specs = [
         {"type": "input-layer", "shape": [None, 2], "weights": []},
@@ -191,7 +191,7 @@ def test_save_layers_json_full_tag_set(tmp_path):
     assert d["layers"][3]["kernel_size"] == [5]
     assert d["layers"][3]["dilation"] == [2]
     # the dense loader skips non-dense entries, reference behavior
-    from diffwdf_tpu.nn.serialization import load_model_json
+    from diffwdf.nn.serialization import load_model_json
 
     mlp, acts, d_in = load_model_json(tmp_path / "m.json")
     assert len(mlp["layers"]) == 1 and acts == ("tanh",)
@@ -203,7 +203,7 @@ def test_load_history_jsonl_and_pickle(tmp_path):
     import json
     import pickle
 
-    from diffwdf_tpu.analysis import load_history
+    from diffwdf.analysis import load_history
 
     hist = {"loss": [1.0, 0.5], "val_loss": [2.0, 1.0]}
     with open(tmp_path / "h.pkl", "wb") as f:
@@ -240,7 +240,7 @@ def test_overwrite_in_place_retracts_commit_marker(tmp_path, monkeypatch):
     """Overwriting an existing committed step dir must delete meta.json
     BEFORE replacing arrays.npz, so a crash between the two replaces leaves
     the directory uncommitted (stale meta must never describe new arrays)."""
-    import diffwdf_tpu.training.checkpoint as ckpt_mod
+    import diffwdf.training.checkpoint as ckpt_mod
 
     sizes, _ = mlp_arch(1, 4)
     params = mlp_init(jax.random.PRNGKey(0), sizes)

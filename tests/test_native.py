@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from diffwdf_tpu.native import lib as native
+from diffwdf.native import lib as native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason=f"native build failed: {native.build_error()}"
@@ -24,8 +24,8 @@ def test_native_clipper_vs_jax_engine():
     import jax
     import jax.numpy as jnp
 
-    import diffwdf_tpu as dwdf
-    from diffwdf_tpu.models.diode_clipper import make_diode_clipper
+    import diffwdf as dwdf
+    from diffwdf.models.diode_clipper import make_diode_clipper
 
     fs, r, c = 48000.0, 47e3, 2.2e-9
     diode = dwdf.diode_1n4148_1u2d
@@ -49,8 +49,8 @@ def test_native_neural_clipper_vs_jax():
     import jax
     import jax.numpy as jnp
 
-    from diffwdf_tpu.models.diode_clipper import make_diode_clipper
-    from diffwdf_tpu.roots.neural import NeuralDiodeRoot
+    from diffwdf.models.diode_clipper import make_diode_clipper
+    from diffwdf.roots.neural import NeuralDiodeRoot
 
     fs, r, c = 48000.0, 47e3, 2.2e-9
     root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8)
@@ -66,8 +66,8 @@ def test_native_neural_clipper_vs_jax():
 
 
 def test_native_csv_loader(tmp_path):
-    from diffwdf_tpu.data.dataimport import read_csv
-    from diffwdf_tpu.data.synthetic import write_reference_csv
+    from diffwdf.data.dataimport import read_csv
+    from diffwdf.data.synthetic import write_reference_csv
 
     fs = 2000.0
     vin = np.random.default_rng(2).normal(size=500).astype(np.float32)

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from scipy.special import wrightomega
 
-from diffwdf_tpu.roots.omega import wright_omega, wright_omega_u
+from diffwdf.roots.omega import wright_omega, wright_omega_u
 
 
 def _oracle(x):
@@ -122,7 +122,7 @@ def test_complex_plane_matches_scipy_strip():
     """Complex-plane capability parity with TOMS917 (``toms917.cpp:72-375``):
     the principal strip |Im z| <= pi including both branch cuts and the
     branch points matches scipy (which wraps TOMS917) to < 1e-13."""
-    from diffwdf_tpu.roots.omega import wright_omega_complex
+    from diffwdf.roots.omega import wright_omega_complex
 
     with jax.enable_x64(True):
         xs = np.linspace(-12.0, 12.0, 121)
@@ -139,7 +139,7 @@ def test_complex_plane_cut_convention_and_special_points():
     """Points exactly ON the cuts reproduce TOMS917's observable branch
     selection (W_{-1} on the upper cut for -2 < x <= -1 and on the lower cut
     for x <= -2; W_0-side elsewhere), and the branch points are exact."""
-    from diffwdf_tpu.roots.omega import wright_omega_complex
+    from diffwdf.roots.omega import wright_omega_complex
 
     with jax.enable_x64(True):
         pts = [
@@ -167,7 +167,7 @@ def test_complex_plane_cut_convention_and_special_points():
 def test_condition_estimate():
     """kappa(z) = |z / (1 + omega)| — large near the branch points
     (TOMS917's condest analogue, ``toms917.cpp:372``)."""
-    from diffwdf_tpu.roots.omega import wright_omega_condition
+    from diffwdf.roots.omega import wright_omega_condition
 
     with jax.enable_x64(True):
         k1 = float(np.asarray(wright_omega_condition(

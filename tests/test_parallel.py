@@ -9,20 +9,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import diffwdf_tpu as dwdf
-from diffwdf_tpu.models.diode_clipper import make_diode_clipper
-from diffwdf_tpu.parallel.mesh import make_mesh, shard_batches
-from diffwdf_tpu.parallel.sweep import (
+import diffwdf as dwdf
+from diffwdf.models.diode_clipper import make_diode_clipper
+from diffwdf.parallel.mesh import make_mesh, shard_batches
+from diffwdf.parallel.sweep import (
     ensemble_process,
     stack_mlp_params,
     sweep_process,
 )
-from diffwdf_tpu.parallel.time_block import (
+from diffwdf.parallel.time_block import (
     time_block_process,
     time_block_process_exact,
     warmup_for_tolerance,
 )
-from diffwdf_tpu.roots.neural import NeuralDiodeRoot, mlp_arch, mlp_init
+from diffwdf.roots.neural import NeuralDiodeRoot, mlp_arch, mlp_init
 
 FS = 48000.0
 
@@ -86,10 +86,10 @@ def test_warmup_error_decays_with_window(devices8):
 
 def test_dp_training_matches_single_device(devices8):
     """Gradient psum over the data axis == single-device step (same math)."""
-    from diffwdf_tpu.data.synthetic import synth_clipper_measurement
-    from diffwdf_tpu.models.diode_clipper import make_training_clipper
-    from diffwdf_tpu.parallel.data_parallel import make_dp_train_step
-    from diffwdf_tpu.training.circuit_train import (
+    from diffwdf.data.synthetic import synth_clipper_measurement
+    from diffwdf.models.diode_clipper import make_training_clipper
+    from diffwdf.parallel.data_parallel import make_dp_train_step
+    from diffwdf.training.circuit_train import (
         CircuitTrainConfig,
         make_clipper_batches,
         make_train_step,
@@ -126,18 +126,18 @@ def test_dp_training_matches_single_device(devices8):
 
 
 def test_dp_fused_engines_match_single_device(devices8):
-    """Round-5 (VERDICT r4 weak #2): the Pallas fused AND fused_generic
-    training steps compose with DP.  Each device runs the fused kernels on
-    its LOCAL batch under shard_map (the canonical Pallas x SPMD combo —
-    plain jit would make the partitioner all-gather the packed custom
-    call), the exact global MSE+ESR is reassembled from psum-reduced sums,
-    and gradients psum — matching the single-device fused step's math."""
-    from diffwdf_tpu.models.diode_clipper import (
+    """The fused_generic training step composes with DP on the training
+    clipper and the HPF.  Each device runs the fused kernel on its LOCAL
+    batch under shard_map (plain jit would make the partitioner all-gather
+    the Pallas custom call), the exact global MSE+ESR is reassembled from
+    psum-reduced sums, and gradients psum — matching the single-device
+    step's math."""
+    from diffwdf.models.diode_clipper import (
         make_hpf_diode_clipper,
         make_training_clipper,
     )
-    from diffwdf_tpu.parallel.data_parallel import make_dp_train_step
-    from diffwdf_tpu.training.circuit_train import (
+    from diffwdf.parallel.data_parallel import make_dp_train_step
+    from diffwdf.training.circuit_train import (
         CircuitTrainConfig,
         make_train_step,
     )
@@ -153,8 +153,14 @@ def test_dp_fused_engines_match_single_device(devices8):
     groot = NeuralDiodeRoot(name="dp", n_layers=1, layer_size=4)
     ckt_g = make_hpf_diode_clipper(groot, FS)
 
+    def only_root(grads):
+        zeros = jax.tree_util.tree_map(jnp.zeros_like, grads)
+        zeros["dp"] = grads["dp"]
+        return zeros
+
     mesh = make_mesh((8, 1), ("data", "time"))
-    for engine, ckt, root in (("fused", ckt_f, froot), ("fused_generic", ckt_g, groot)):
+    for engine, ckt, root in (("fused_generic", ckt_f, froot),
+                              ("fused_generic", ckt_g, groot)):
         params0 = {
             **ckt.init_params(),
             **root.init_params(jax.random.PRNGKey(1)),
@@ -172,23 +178,28 @@ def test_dp_fused_engines_match_single_device(devices8):
             epochs=2, batch_size=T, learning_rate=3e-3, skip_samples=8,
             engine=engine,
         )
-        opt, step, _ = make_train_step(ckt, cfg)
+        # the training clipper trains its root only (the reference's
+        # policy): an Adam step of 3e-3 on C = 4.7 nF would wreck the circuit
+        filt = only_root if ckt is ckt_f else None
+        opt, step, _ = make_train_step(ckt, cfg, filt)
         s = opt.init(params0)
         p1, s, m1 = step(params0, s, batches)
 
-        opt2, dp_step, dp_eval, prepare = make_dp_train_step(ckt, cfg, mesh)
+        opt2, dp_step, dp_eval, prepare = make_dp_train_step(ckt, cfg, mesh,
+                                                             filt)
         s2 = opt2.init(params0)
         p2, s2, bsh = prepare(params0, s2, batches)
 
         # raw psummed gradient vs single-device gradient (Adam's update is
         # scale-invariant, so the params check below alone would not catch
         # a collective double count)
-        from diffwdf_tpu.training.circuit_train import make_loss_fn
+        from diffwdf.training.circuit_train import make_loss_fn
 
         _, _, g_dp = dp_step.grads_fn(p2, bsh)
         (_, _), g_1 = jax.value_and_grad(
             make_loss_fn(ckt, cfg), has_aux=True
         )(params0, batches)
+        g_1 = filt(g_1) if filt else g_1
         for a, b in zip(
             jax.tree_util.tree_leaves(g_dp), jax.tree_util.tree_leaves(g_1)
         ):
@@ -221,9 +232,9 @@ def test_time_block_training_matches_long_scan(devices8):
     psummed.  The psummed gradient matches the single-device FULL-LENGTH
     scan BPTT gradient within the overlap truncation budget, and the step
     reduces the loss."""
-    from diffwdf_tpu.models.diode_clipper import make_training_clipper
-    from diffwdf_tpu.parallel.time_block import make_time_block_train_step
-    from diffwdf_tpu.training.circuit_train import CircuitTrainConfig
+    from diffwdf.models.diode_clipper import make_training_clipper
+    from diffwdf.parallel.time_block import make_time_block_train_step
+    from diffwdf.training.circuit_train import CircuitTrainConfig
 
     root = NeuralDiodeRoot(name="dp", n_layers=1, layer_size=4)
     ckt = make_training_clipper(root, FS)
@@ -275,7 +286,7 @@ def test_time_block_training_matches_long_scan(devices8):
     _, step_e, _ = make_time_block_train_step(ckt, cfg_e, mesh, warmup=W)
 
     def oracle_loss_emph(p):
-        from diffwdf_tpu.training.losses import pre_emphasis
+        from diffwdf.training.losses import pre_emphasis
 
         out, _ = ckt.process(p, state0, {"Vs": {"v": x}})
         o = pre_emphasis(out, axis=0)[cfg_e.skip_samples:]
@@ -319,9 +330,9 @@ def test_time_block_training_2axis_dp_x_time(devices8):
     axis — one training step over a (4, 2) mesh.  The psummed gradient
     matches the single-device all-rows full-length BPTT gradient within
     the overlap budget."""
-    from diffwdf_tpu.models.diode_clipper import make_training_clipper
-    from diffwdf_tpu.parallel.time_block import make_time_block_train_step
-    from diffwdf_tpu.training.circuit_train import CircuitTrainConfig
+    from diffwdf.models.diode_clipper import make_training_clipper
+    from diffwdf.parallel.time_block import make_time_block_train_step
+    from diffwdf.training.circuit_train import CircuitTrainConfig
 
     root = NeuralDiodeRoot(name="dp", n_layers=1, layer_size=4)
     ckt = make_training_clipper(root, FS)
@@ -421,8 +432,8 @@ def test_scaling_harness(devices8):
     not meaningful on CPU; the harness behavior is what's under test)."""
     import jax.numpy as jnp
 
-    from diffwdf_tpu.parallel.distributed import measure_scaling
-    from diffwdf_tpu.parallel.mesh import shard_batches
+    from diffwdf.parallel.distributed import measure_scaling
+    from diffwdf.parallel.mesh import shard_batches
 
     ckt, params = _clipper()
 

@@ -1,20 +1,19 @@
 """Generic differentiable fused engine (ops.parallel_bptt).
 
-Gradcheck target: scan BPTT (jax.grad through ``circuit.process``), the same
-oracle the clipper-only engine (ops.clipper_train) is held to.  Interpret
-mode on CPU; the identical kernel compiles for TPU (bench entry
-``training_step_fused_ts``).
+Gradcheck target: scan BPTT (jax.grad through ``circuit.process``).  The
+forward kernel runs in interpret mode on the CPU; the identical kernel
+compiles for the GPU through Triton (``chip_smoke.py`` checks a step there).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-import diffwdf_tpu as dwdf
-from diffwdf_tpu.models.diode_clipper import make_hpf_diode_clipper
-from diffwdf_tpu.models.tube_screamer import make_tube_screamer
-from diffwdf_tpu.ops.parallel_bptt import make_fused_circuit_train_generic
-from diffwdf_tpu.roots.neural import NeuralDiodeRoot
+import diffwdf as dwdf
+from diffwdf.models.diode_clipper import make_hpf_diode_clipper
+from diffwdf.models.tube_screamer import make_tube_screamer
+from diffwdf.ops.parallel_bptt import make_fused_circuit_train_generic
+from diffwdf.roots.neural import NeuralDiodeRoot
 
 FS = 48000.0
 B, T = 1024, 48
@@ -45,8 +44,7 @@ def _rel_errs(g1, g2):
 def test_ts_gradcheck_vs_scan_bptt():
     """Tube Screamer (R-type stage, 3 reactive states, neural root): the
     parallel backward matches scan BPTT on EVERY parameter — MLP weights AND
-    circuit components (the zero-cotangent restriction of the clipper-only
-    engine is lifted) — plus the input stream."""
+    circuit components — plus the input stream."""
     root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8)
     ts = make_tube_screamer(root, FS)
     params = {**ts.init_params(), **root.init_params()}
@@ -116,7 +114,7 @@ def test_hpf_analytic_root_gradcheck():
 def test_train_step_fused_generic_reduces_loss():
     """engine='fused_generic' plugs into make_train_step and optimizes the
     Tube Screamer's neural root against analytic-root targets."""
-    from diffwdf_tpu.training.circuit_train import (
+    from diffwdf.training.circuit_train import (
         CircuitTrainConfig, make_train_step,
     )
 
@@ -209,7 +207,7 @@ def test_row_pot_hpf_gradcheck_vs_scan():
 def test_row_pot_ts_neural_gradcheck_vs_scan():
     """Per-row DRIVE pot (R6) on the Tube Screamer with a neural root: the
     per-row scatter coefficients and the per-row log-R MLP conditioning
-    both stream through the fused forward AND the Pallas adjoint.  MLP
+    both stream through the fused forward AND the parallel backward.  MLP
     cotangents (the reference training target) match scan BPTT <= 1e-4."""
     root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8)
     ts = make_tube_screamer(root, FS)
@@ -218,7 +216,7 @@ def test_row_pot_ts_neural_gradcheck_vs_scan():
     vin = jnp.asarray((0.5 * rng.standard_normal((B, T))).astype(np.float32))
     y = jnp.asarray(rng.standard_normal((B, T)).astype(np.float32))
     # drive pot sweep over [0, 1]: R6 in [51k, 551k] (TubeScreamer.cpp:66)
-    from diffwdf_tpu.models.tube_screamer import drive_to_r6
+    from diffwdf.models.tube_screamer import drive_to_r6
 
     r6_rows = jnp.asarray(
         drive_to_r6(rng.uniform(0.0, 1.0, B)).astype(np.float32)
@@ -249,70 +247,16 @@ def test_row_pot_ts_neural_gradcheck_vs_scan():
     assert errs["dp"]["layers"][0]["kernel"] < 1e-4, errs["dp"]
 
 
-def test_row_pot_pallas_matches_xla_backward():
-    """Per-row controls through BOTH backward engines agree (params, vin,
-    z0 cotangents) on the analytic HPF and the neural Tube Screamer."""
-    rng = np.random.default_rng(13)
-    vin = jnp.asarray((0.5 * rng.standard_normal((B, T))).astype(np.float32))
-    y = jnp.asarray(rng.standard_normal((B, T)).astype(np.float32))
-
-    cases = []
-    root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8)
-    ts = make_tube_screamer(root, FS)
-    from diffwdf_tpu.models.tube_screamer import drive_to_r6
-
-    r6 = jnp.asarray(drive_to_r6(rng.uniform(0, 1, B)).astype(np.float32))
-    cases.append((ts, "Vin", ("R6", "R"), r6,
-                  {**ts.init_params(), **root.init_params()}))
-    aroot = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d)
-    hpf = make_hpf_diode_clipper(aroot, FS)
-    rr = jnp.asarray(
-        np.exp(rng.uniform(np.log(36e3), np.log(73e3), B)).astype(np.float32)
-    )
-    cases.append((hpf, "Vs", ("Vs", "R"), rr,
-                  {**hpf.init_params(), **aroot.init_params()}))
-
-    for ckt, node, rf, rows, params in cases:
-        S = len(jax.tree_util.tree_leaves(ckt.init_state()))
-        z0 = [jnp.zeros((B,), jnp.float32) for _ in range(S)]
-
-        def loss(f):
-            def L(p, v, z):
-                out, zf = f(p, v, z, (rows,))
-                return (
-                    jnp.sum((out - y) ** 2)
-                    + sum(jnp.sum(3.0 * zz) for zz in zf)
-                )
-            return L
-
-        f_pl = make_fused_circuit_train_generic(
-            ckt, input_node=node, interpret=True, backward="pallas",
-            row_fields=(rf,))
-        f_xla = make_fused_circuit_train_generic(
-            ckt, input_node=node, interpret=True, backward="xla",
-            row_fields=(rf,))
-        g_pl = jax.grad(loss(f_pl), argnums=(0, 1, 2))(params, vin, z0)
-        g_xla = jax.grad(loss(f_xla), argnums=(0, 1, 2))(params, vin, z0)
-        for a, b in zip(jax.tree_util.tree_leaves(g_pl),
-                        jax.tree_util.tree_leaves(g_xla)):
-            denom = float(jnp.max(jnp.abs(b))) + 1e-12
-            # 3e-4: the two engines sum the inner products in different
-            # orders over f32 trajectories with O(1e8)-magnitude component
-            # cotangents; each engine independently matches the scan oracle
-            # <= 1e-4 in the dedicated gradcheck tests above.
-            assert float(jnp.max(jnp.abs(a - b))) / denom < 3e-4, ckt
-
-
 def test_per_sample_pot_gradcheck_vs_scan():
     """PER-SAMPLE pot streams (round 5): a genuinely time-varying R — the
     un-hoistable case the reference runs by re-adapting inside its sample
     loop (``clipper_pot.py:113-124``) — streams (B, T) coefficients through
-    the fused forward AND adjoint.  Checked on the training clipper with a
+    the fused forward AND the parallel backward.  Checked on the training clipper with a
     random-walk source R (analytic root, in-scan re-adaptation oracle) and
     on the TS with a per-sample drive pot + NEURAL root (the streamed
     log-R conditioning path)."""
-    from diffwdf_tpu.models.diode_clipper import make_training_clipper
-    from diffwdf_tpu.models.tube_screamer import drive_to_r6
+    from diffwdf.models.diode_clipper import make_training_clipper
+    from diffwdf.models.tube_screamer import drive_to_r6
 
     rng = np.random.default_rng(19)
     vin = jnp.asarray((1.0 * rng.standard_normal((B, T))).astype(np.float32))
@@ -373,55 +317,13 @@ def test_per_sample_pot_gradcheck_vs_scan():
         assert errs["dp"][next(iter(errs["dp"]))] is not None  # tree sanity
 
 
-def test_per_sample_pot_pallas_matches_xla_backward():
-    """The (B, T) pot streams run through BOTH backward engines with
-    agreeing cotangents (the reversed time-leaf streaming in the Pallas
-    adjoint vs the XLA linearize path's broadcast coefficients)."""
-    from diffwdf_tpu.models.diode_clipper import make_training_clipper
-
-    rng = np.random.default_rng(29)
-    vin = jnp.asarray((1.0 * rng.standard_normal((B, T))).astype(np.float32))
-    y = jnp.asarray(rng.standard_normal((B, T)).astype(np.float32))
-    aroot = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d)
-    ckt = make_training_clipper(aroot, FS)
-    params = {**ckt.init_params(), **aroot.init_params()}
-    r_bt = jnp.asarray(
-        np.exp(
-            np.log(45e3)
-            + np.cumsum(0.02 * rng.standard_normal((B, T)), axis=1)
-        ).astype(np.float32)
-    )
-    z0 = [jnp.zeros((B,), jnp.float32)]
-
-    def loss(f):
-        def L(p):
-            out, zf = f(p, vin, z0, (r_bt,))
-            return jnp.sum((out - y) ** 2) + sum(
-                jnp.sum(3.0 * zz) for zz in zf
-            )
-        return L
-
-    f_pl = make_fused_circuit_train_generic(
-        ckt, input_node="Vs", interpret=True, backward="pallas",
-        row_fields=(("Vs", "R"),))
-    f_xla = make_fused_circuit_train_generic(
-        ckt, input_node="Vs", interpret=True, backward="xla",
-        row_fields=(("Vs", "R"),))
-    g_pl = jax.grad(loss(f_pl))(params)
-    g_xla = jax.grad(loss(f_xla))(params)
-    for a, b in zip(jax.tree_util.tree_leaves(g_pl),
-                    jax.tree_util.tree_leaves(g_xla)):
-        denom = float(jnp.max(jnp.abs(b))) + 1e-12
-        assert float(jnp.max(jnp.abs(a - b))) / denom < 3e-4
-
-
 def test_joint_fit_with_pot_sweep_data():
     """joint_fit_clipper (components + MLP together) on the fused_generic
     engine with per-row pot data: the combination of the round-4 joint
     physics+neural fit with the round-5 pot streams — every cotangent
     (R, C, MLP) flows through the per-row coefficient tiles."""
-    from diffwdf_tpu.models.diode_clipper import make_training_clipper
-    from diffwdf_tpu.training.circuit_train import (
+    from diffwdf.models.diode_clipper import make_training_clipper
+    from diffwdf.training.circuit_train import (
         CircuitTrainConfig, joint_fit_clipper,
     )
 
@@ -461,7 +363,7 @@ def test_train_step_fused_generic_accepts_r0_batches():
     """engine='fused_generic' + hoisted per-row 'r0' batches — the exact
     measured-data workload the round-4 engine rejected — trains the HPF's
     neural root end to end and reduces the loss."""
-    from diffwdf_tpu.training.circuit_train import (
+    from diffwdf.training.circuit_train import (
         CircuitTrainConfig, make_train_step,
     )
 
@@ -495,56 +397,14 @@ def test_train_step_fused_generic_accepts_r0_batches():
     assert float(m["loss"]) < float(m0["loss"]), (m0, m)
 
 
-def test_pallas_backward_matches_xla_backward():
-    """The fused Pallas adjoint kernel (backward='pallas', default) and the
-    round-3 XLA path (linearize pulls + associative scan) produce the same
-    cotangents — params, input stream, and initial state — on the Tube
-    Screamer with a neural root AND on the analytic-root HPF."""
-    rng = np.random.default_rng(5)
-    vin = jnp.asarray((0.5 * rng.standard_normal((B, T))).astype(np.float32))
-    y = jnp.asarray(rng.standard_normal((B, T)).astype(np.float32))
-
-    cases = []
-    root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8)
-    ts = make_tube_screamer(root, FS)
-    cases.append((ts, "Vin", {**ts.init_params(), **root.init_params()}))
-    aroot = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d)
-    hpf = make_hpf_diode_clipper(aroot, FS)
-    cases.append((hpf, "Vs", {**hpf.init_params(), **aroot.init_params()}))
-
-    for ckt, node, params in cases:
-        S = len(jax.tree_util.tree_leaves(ckt.init_state()))
-        z0 = [jnp.zeros((B,), jnp.float32) for _ in range(S)]
-
-        def loss(f):
-            def L(p, v, z):
-                out, zf = f(p, v, z)
-                return (
-                    jnp.sum((out - y) ** 2)
-                    + sum(jnp.sum(3.0 * zz) for zz in zf)
-                )
-            return L
-
-        f_pl = make_fused_circuit_train_generic(
-            ckt, input_node=node, interpret=True, backward="pallas")
-        f_xla = make_fused_circuit_train_generic(
-            ckt, input_node=node, interpret=True, backward="xla")
-        g_pl = jax.grad(loss(f_pl), argnums=(0, 1, 2))(params, vin, z0)
-        g_xla = jax.grad(loss(f_xla), argnums=(0, 1, 2))(params, vin, z0)
-        for a, b in zip(jax.tree_util.tree_leaves(g_pl),
-                        jax.tree_util.tree_leaves(g_xla)):
-            denom = float(jnp.max(jnp.abs(b))) + 1e-12
-            assert float(jnp.max(jnp.abs(a - b))) / denom < 1e-4, ckt
-
-
 def test_mixed_r_chunks_train_on_fused_generic():
     """The real measured-data edge case that motivated per-sample streams:
     a chunk straddling a FILE BOUNDARY carries two R values, so it cannot
     hoist ("r" stays (B, T) in make_clipper_batches).  Round 4 dropped such
     chunks on the fused path (drop_mixed_r); the fused_generic engine now
     trains them directly, matching the scan engine's loss trajectory."""
-    from diffwdf_tpu.models.diode_clipper import make_training_clipper
-    from diffwdf_tpu.training.circuit_train import (
+    from diffwdf.models.diode_clipper import make_training_clipper
+    from diffwdf.training.circuit_train import (
         CircuitTrainConfig,
         make_clipper_batches,
         train_clipper,

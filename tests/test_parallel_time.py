@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import diffwdf_tpu as dwdf
-from diffwdf_tpu.models.diode_clipper import make_diode_clipper
-from diffwdf_tpu.models.tube_screamer import make_tube_screamer
-from diffwdf_tpu.ops.parallel_time import parallel_time_process
+import diffwdf as dwdf
+from diffwdf.models.diode_clipper import make_diode_clipper
+from diffwdf.models.tube_screamer import make_tube_screamer
+from diffwdf.ops.parallel_time import parallel_time_process
 
 FS = 48000.0
 
@@ -64,7 +64,7 @@ def test_matches_scan_on_tube_screamer_multistate():
 
 
 def test_neural_root_supported():
-    from diffwdf_tpu.roots.neural import NeuralDiodeRoot
+    from diffwdf.roots.neural import NeuralDiodeRoot
 
     root = NeuralDiodeRoot(name="dp", n_layers=1, layer_size=8)
     ckt = make_diode_clipper(root, FS)
@@ -81,7 +81,7 @@ def test_neural_root_supported():
 def test_implicit_gradients_match_bptt():
     """Implicit-adjoint gradients at the converged trajectory == BPTT through
     the sequential scan (both value and grads w.r.t. params and inputs)."""
-    from diffwdf_tpu.ops.parallel_time import parallel_time_process_implicit
+    from diffwdf.ops.parallel_time import parallel_time_process_implicit
 
     root = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d)
     ckt = make_diode_clipper(root, FS)
@@ -119,8 +119,8 @@ def test_batched_forwards_solver_knobs():
     the batched HPF solve needs the same damped Newton as single-stream,
     and the per-stream residual certificate must be reachable
     (regression — these knobs used to be silently dropped)."""
-    from diffwdf_tpu.models.diode_clipper import make_hpf_diode_clipper
-    from diffwdf_tpu.ops.parallel_time import parallel_time_batched
+    from diffwdf.models.diode_clipper import make_hpf_diode_clipper
+    from diffwdf.ops.parallel_time import parallel_time_batched
 
     root = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d,
                               quality="best")

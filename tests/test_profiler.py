@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from diffwdf_tpu.runtime import profiler
+from diffwdf.runtime import profiler
 
 
 def test_timer_times_jitted_fn():

@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import diffwdf_tpu as dwdf
-from diffwdf_tpu.core.adaptors import Inverter, Parallel, Series
-from diffwdf_tpu.core.circuit import Circuit
-from diffwdf_tpu.core.elements import (
+import diffwdf as dwdf
+from diffwdf.core.adaptors import Inverter, Parallel, Series
+from diffwdf.core.circuit import Circuit
+from diffwdf.core.elements import (
     Capacitor,
     Inductor,
     Resistor,
@@ -76,7 +76,7 @@ def _scan(circuit, params, vin_b):
 
 @pytest.mark.parametrize("seed", range(8))
 def test_fused_circuit_random_topology(seed):
-    from diffwdf_tpu.ops.fused_circuit import fused_circuit_process
+    from diffwdf.ops.fused_circuit import fused_circuit_process
 
     ckt = random_circuit(seed)
     params = {**ckt.init_params(), **ckt.root.init_params()}
@@ -96,7 +96,7 @@ def test_fused_circuit_random_topology(seed):
 
 @pytest.mark.parametrize("seed", range(3))
 def test_codegen_random_topology(seed):
-    from diffwdf_tpu.native.codegen import compile_circuit
+    from diffwdf.native.codegen import compile_circuit
 
     ckt = random_circuit(seed)
     params = {**ckt.init_params(), **ckt.root.init_params()}
@@ -114,7 +114,7 @@ def test_codegen_random_topology(seed):
 
 
 def _deer_one_seed(seed):
-    from diffwdf_tpu.ops.deer_circuit import fused_deer_circuit
+    from diffwdf.ops.parallel_time import parallel_time_process
 
     ckt = random_circuit(seed)
     params = {**ckt.init_params(), **ckt.root.init_params()}
@@ -122,9 +122,9 @@ def _deer_one_seed(seed):
     rng = np.random.default_rng(300 + seed)
     vin = jnp.asarray((1.0 * rng.standard_normal(T)).astype(np.float32))
     ref = _scan(ckt, params, vin[None])[0]
-    out, _, res = fused_deer_circuit(
-        ckt, params, vin, input_node="Vs", sweeps=16, damping=0.5,
-        interpret=True,
+    out, res = parallel_time_process(
+        ckt, params, {"Vs": {"v": vin}}, n_iters=16, damping=0.5,
+        return_residual=True,
     )
     err = float(np.max(np.abs(np.asarray(out) - ref)))
     scale = max(float(np.max(np.abs(ref))), 1.0)

@@ -12,8 +12,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import diffwdf_tpu as dwdf
-from diffwdf_tpu.core.rtype import (
+import diffwdf as dwdf
+from diffwdf.core.rtype import (
     Netlist,
     RTypeAdaptor,
     VCVS,
@@ -22,7 +22,7 @@ from diffwdf_tpu.core.rtype import (
     make_netlist_scatter_fn,
     scattering_matrix,
 )
-from diffwdf_tpu.models.tube_screamer import (
+from diffwdf.models.tube_screamer import (
     OPAMP_GAIN,
     OPAMP_RIN,
     OPAMP_ROUT,
@@ -209,7 +209,7 @@ def test_tube_screamer_neural_root_from_zoo():
     )
     if not os.path.exists(json_path):
         pytest.skip("reference zoo not mounted")
-    from diffwdf_tpu.roots.neural import NeuralDiodeRoot
+    from diffwdf.roots.neural import NeuralDiodeRoot
 
     fs = 48000.0
     mlp, acts, _ = dwdf.load_model_json(json_path)

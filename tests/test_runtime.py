@@ -3,12 +3,12 @@
 import jax.numpy as jnp
 import numpy as np
 
-import diffwdf_tpu as dwdf
-from diffwdf_tpu.models.diode_clipper import (
+import diffwdf as dwdf
+from diffwdf.models.diode_clipper import (
     make_diode_clipper,
     make_hpf_diode_clipper,
 )
-from diffwdf_tpu.runtime.stream import (
+from diffwdf.runtime.stream import (
     StreamingProcessor,
     make_clipper_processor,
     make_plugin_processor,
@@ -73,7 +73,7 @@ def test_param_reflection_per_circuit():
     (``DiodeClipper.cpp:20-31``, ``MultiDiodeClipper.cpp:20-31``,
     ``TubeScreamer.cpp:21-29``, ``HPFDiodeClipper.cpp:21-31``) — not one
     hardcoded clipper schema (round-1 VERDICT weak #5)."""
-    from diffwdf_tpu.runtime.stream import make_hpf_processor, make_plugin_processor
+    from diffwdf.runtime.stream import make_hpf_processor, make_plugin_processor
 
     proc = make_plugin_processor(FS)
     assert set(proc.surfaces()) == {
@@ -151,7 +151,7 @@ def test_hpf_extrapolation_probe():
     )
     if not os.path.exists(json_path):
         pytest.skip("reference zoo not mounted")
-    from diffwdf_tpu.roots.neural import NeuralDiodeRoot
+    from diffwdf.roots.neural import NeuralDiodeRoot
 
     mlp, acts, _ = dwdf.load_model_json(json_path)
     nroot, frag = NeuralDiodeRoot.from_mlp("dp", mlp, acts)
@@ -185,7 +185,7 @@ def test_block_rate_cutoff_param():
 
 def test_plugin_processor_all_circuits():
     """The full plugin circuit set streams and responds to its params."""
-    from diffwdf_tpu.runtime.stream import make_plugin_processor
+    from diffwdf.runtime.stream import make_plugin_processor
 
     proc = make_plugin_processor(FS)
     x = (0.2 * np.sin(2 * np.pi * 440.0 * np.arange(1024) / FS)).astype(np.float32)
@@ -203,7 +203,7 @@ def test_hpf_processor_four_roots():
     """HPF circuit under its 4 root choices (``HPFDiodeClipper.cpp:29-30``):
     all dispatch, all finite; the 'trained' HPF model (when its artifact
     exists) tracks the analytic root closely."""
-    from diffwdf_tpu.runtime.stream import make_hpf_processor
+    from diffwdf.runtime.stream import make_hpf_processor
 
     proc = make_hpf_processor(FS)
     n = np.arange(4096)
@@ -220,7 +220,7 @@ def test_hpf_processor_four_roots():
 def test_hpf_processor_cutoff_moves_corner():
     """Block-rate cutoff -> load-R map (``HPFDiodeClipper.cpp:64-66``):
     a 100 Hz tone passes much more at a low cutoff than a high one."""
-    from diffwdf_tpu.runtime.stream import make_hpf_processor
+    from diffwdf.runtime.stream import make_hpf_processor
 
     n = np.arange(9600)
     x = (0.2 * np.sin(2 * np.pi * 100.0 * n / FS)).astype(np.float32)
@@ -235,7 +235,7 @@ def test_model_hot_swap_mid_stream():
     clipper switches among all 7 zoo models at block rate on ONE shared
     state — the "model" parameter is actionable, selectable by index, schema
     label, or member name, and the reactive state carries across switches."""
-    from diffwdf_tpu.runtime.stream import make_plugin_processor
+    from diffwdf.runtime.stream import make_plugin_processor
 
     rng = np.random.default_rng(5)
     x = (1.2 * rng.standard_normal(3 * 512)).astype(np.float32)
@@ -269,7 +269,7 @@ def test_schema_choices_are_all_selectable():
     """Schema honesty (round-2 VERDICT #1): every "model" choice a processor
     advertises is selectable on the circuit that advertises it, for every
     group in the full plugin set."""
-    from diffwdf_tpu.runtime.stream import make_plugin_processor
+    from diffwdf.runtime.stream import make_plugin_processor
 
     proc = make_plugin_processor(FS)
     x = (0.5 * np.sin(2 * np.pi * 220 * np.arange(256) / FS)).astype(
@@ -290,7 +290,7 @@ def test_over_advertising_schema_is_rejected():
     """A schema whose model choices exceed the selectable set must fail at
     construction, not silently render a dead dropdown."""
     import pytest
-    from diffwdf_tpu.runtime.stream import ParamSpec
+    from diffwdf.runtime.stream import ParamSpec
 
     circuits = {}
     for i, q in enumerate(("best", "low")):
@@ -319,10 +319,10 @@ def test_review_fixes_model_routing_and_errors():
     default and receive clipper_json); set_params is group-aware; integer
     model choices are range-checked."""
     import pytest
-    from diffwdf_tpu.models.diode_clipper import (
+    from diffwdf.models.diode_clipper import (
         make_root_from_zoo, pretrained_model_path,
     )
-    from diffwdf_tpu.runtime.stream import make_plugin_processor
+    from diffwdf.runtime.stream import make_plugin_processor
 
     # explicit missing JSON is an error, not a silent random net
     with pytest.raises(FileNotFoundError):
@@ -349,7 +349,7 @@ def test_review_fixes_model_routing_and_errors():
                    if s.name == "model")
     assert cl_spec.default_choice == 0
     if has9:
-        from diffwdf_tpu.nn.serialization import load_model_json
+        from diffwdf.nn.serialization import load_model_json
 
         mlp, _, _ = load_model_json(json9)
         got = proc.circuits["multi_diode_clipper/2"][1]["dp"]

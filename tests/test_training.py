@@ -9,17 +9,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import diffwdf_tpu as dwdf
-from diffwdf_tpu.models.diode_clipper import make_training_clipper
-from diffwdf_tpu.roots.diode import diode_1n4148_1u1d
-from diffwdf_tpu.roots.neural import NeuralDiodeRoot
-from diffwdf_tpu.training.circuit_train import (
+import diffwdf as dwdf
+from diffwdf.models.diode_clipper import make_training_clipper
+from diffwdf.roots.diode import diode_1n4148_1u1d
+from diffwdf.roots.neural import NeuralDiodeRoot
+from diffwdf.training.circuit_train import (
     CircuitTrainConfig,
     fit_components,
     make_clipper_batches,
     train_clipper,
 )
-from diffwdf_tpu.training.pretrain import (
+from diffwdf.training.pretrain import (
     PretrainConfig,
     evaluate_pretrained,
     pretrain_diode,
@@ -113,7 +113,7 @@ def test_circuit_training_reduces_loss():
     diode = diode_1n4148_1u1d
     fs = 8000.0
     # synthesize a tiny 'measurement' with the analytic root
-    from diffwdf_tpu.data.synthetic import synth_clipper_measurement
+    from diffwdf.data.synthetic import synth_clipper_measurement
 
     vin, vout = synth_clipper_measurement(
         diode, 45.0e3, fs=fs, duration_s=0.6, seed=0
@@ -147,8 +147,8 @@ def test_circuit_training_reduces_loss():
 def test_dataimport_roundtrip(tmp_path):
     """Synthetic CSVs in the reference's on-disk format load and split by R
     exactly as the reference importer does."""
-    from diffwdf_tpu.data.dataimport import load_diode_data
-    from diffwdf_tpu.data.synthetic import make_synthetic_dataset_dir
+    from diffwdf.data.dataimport import load_diode_data
+    from diffwdf.data.synthetic import make_synthetic_dataset_dir
 
     diode = diode_1n4148_1u1d
     fs = 2000.0
@@ -168,8 +168,8 @@ def test_dataimport_roundtrip(tmp_path):
 def test_hoisted_r_matches_per_sample_adaptation():
     """R-hoisting (adapt once per constant-R chunk, SURVEY.md §7) is exactly
     the per-sample re-adaptation math: outputs and gradients match."""
-    from diffwdf_tpu.training.circuit_train import clipper_forward
-    from diffwdf_tpu.training.losses import esr, mse
+    from diffwdf.training.circuit_train import clipper_forward
+    from diffwdf.training.losses import esr, mse
 
     fs = 8000.0
     root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8)
